@@ -1,6 +1,6 @@
 #!/bin/bash
 # (bash, not sh: `wait -n` below is a bashism)
-# Streaming detect supervisor for a receiver node / TPU host.
+# Streaming detect supervisor for a receiver node / GPU detect host.
 #
 # Mirrors the reference's rpi/detect.sh: wait for NTP coarse time sync,
 # create a FIFO between the capture process and the detector so neither

@@ -3,7 +3,7 @@
 # /root/reference) against minimal self-written backend shims, run it on
 # committed inputs, and write golden outputs to tests/golden/fastdet/.
 #
-# The TPU hosts have no FFTW, volk, or librtlsdr, so this script
+# The build hosts have no FFTW, volk, or librtlsdr, so this script
 # substitutes:
 #   * fftw3.h      -> own iterative radix-2 FFT (double-precision
 #                     internal, float in/out; power-of-two only).

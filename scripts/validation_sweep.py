@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Randomized differential validation sweep across the framework.
 
-Packages the offline campaigns used to validate the TPU-first
+Packages the offline campaigns used to validate the batched
 implementations against their reference-semantics oracles, so they
 can be re-run at any scale after a change (or on new hardware):
 
@@ -82,12 +82,12 @@ def sweep_detector(trials, rng):
             cbin = int(rng.integers(3, half - 1)) * \
                 (1 if rng.integers(2) else -1)
         sync = ("fractional", "integer")[int(rng.integers(2))]
-        # 'matmul' exercises the MXU transform paths on CPU, including
-        # the round-5 windowed carrier DFT (active for fractional
+        # 'matmul' exercises the matmul transform paths on CPU, including
+        # the windowed carrier DFT (active for fractional
         # trials without a peak filter) and the head-trimmed IFFT.
         impl = ("xla", "matmul")[int(rng.integers(2))]
         flen = int(rng.choice([0, 0, 5, 7]))
-        # Carrier-gated compaction (round 5): capacity nb-1 keeps the
+        # Carrier-gated compaction: capacity nb-1 keeps the
         # gated branch active (planted carriers = nb-2 <= cap < nb
         # blocks); a noise false alarm just triggers the exact
         # full-batch fallback, so either way the oracle comparison
@@ -347,7 +347,7 @@ def sweep_pos(trials, rng):
         # Residual slack scaled to the trial's own noise floor: with
         # noise_ns=0 both solvers should reach ~machine-level residuals,
         # so a 1 m absolute slack would misgrade a genuinely worse fit
-        # as 'ambiguous' (ADVICE r3).  3-sigma over the row count covers
+        # as 'ambiguous'.  3-sigma over the row count covers
         # the expected residual-norm fluctuation between two minima fit
         # to the same noisy rows.
         slack = max(0.01, 3.0 * noise_ns * 1e-9 * C * np.sqrt(len(rows)))
@@ -364,7 +364,7 @@ def sweep_pos(trials, rng):
                     stats["examples"].append(
                         ("ambiguous", trial, err_ref, err_got,
                          res_ref, res_got))
-        # Symmetric grading (ADVICE r3): GN only gets credit for a
+        # Symmetric grading: GN only gets credit for a
         # >100 m win when its residual is also genuinely better --
         # equal-residual mirror-basin coin-flips are ambiguous, not
         # wins, exactly as they are not losses above.
@@ -435,8 +435,8 @@ def sweep_fastdet(trials, rng):
 
         for trial in range(trials):
             # Log-uniform amplitudes across the measured detection knee
-            # (100% at ~0.012, 0% at ~0.008 with noise_std 0.05;
-            # docs/performance.md) plus margins either side.
+            # (100% at ~0.012, 0% at ~0.008 with noise_std 0.05,
+            # measured on the CPU) plus margins either side.
             amp = float(10 ** rng.uniform(np.log10(0.006),
                                           np.log10(0.03)))
             cap = sim.synth_capture(

@@ -10,11 +10,35 @@ from thrifty_tpu.io import card
 
 
 def test_enable_compile_cache_env_override(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR is honoured: the cache goes there and
+    no other directory is configured."""
+    import jax
+
     cache_dir = str(tmp_path / "wisdom")
-    monkeypatch.setenv("THRIFTY_TPU_JAX_CACHE", cache_dir)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cache_dir)
     from thrifty_tpu.compile_cache import enable_compile_cache
 
     assert enable_compile_cache() == cache_dir
+    assert jax.config.jax_compilation_cache_dir == cache_dir
+
+
+def test_default_cache_dir_is_fixed(tmp_path, monkeypatch):
+    """Unset, the cache lives at <checkout>/.jax_cache: the same path
+    whatever the working directory, process or time (the path is part
+    of what lets a later run find the cache)."""
+    import jax
+
+    from thrifty_tpu import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    expected = os.path.join(repo, ".jax_cache")
+    first = compile_cache.enable_compile_cache()
+    monkeypatch.chdir(tmp_path)
+    assert compile_cache.enable_compile_cache() == first == expected
+    assert jax.config.jax_compilation_cache_dir == expected
+    assert compile_cache.DEFAULT_DIR == expected
+    assert str(os.getpid()) not in expected
 
 
 def test_detect_cli_populates_cache(tmp_path, monkeypatch):
@@ -22,7 +46,7 @@ def test_detect_cli_populates_cache(tmp_path, monkeypatch):
     persistent cache so the next invocation skips compilation
     (reference wisdom files, fastcard/fastcard.c:32-37)."""
     cache_dir = str(tmp_path / "wisdom")
-    monkeypatch.setenv("THRIFTY_TPU_JAX_CACHE", cache_dir)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cache_dir)
     # Earlier tests may have initialized the persistent cache at another
     # location and populated the in-memory executable cache; reset both
     # so this cold start actually compiles into the new directory.

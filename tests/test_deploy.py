@@ -27,7 +27,7 @@ def test_sigterm_shuts_down_promptly(tmp_path):
         OUTPUT=str(tmp_path / "rx.toad"),
         FIFO=str(tmp_path / "capture.fifo"),
         CAPTURE_CMD="sleep 300",
-        THRIFTY_TPU_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
         PATH=os.environ["PATH"],
     )

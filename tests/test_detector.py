@@ -67,7 +67,7 @@ def test_quiet_blocks_not_detected(capture, output):
 
 
 def test_matches_oracle(capture, detector, output, oracle_results):
-    """The f32 TPU path must agree with the float64 reference math."""
+    """The f32 device path must agree with the float64 reference math."""
     for i, ref in enumerate(oracle_results):
         assert bool(output["carrier_detect"][i]) == ref.carrier_detect
         if not ref.carrier_detect:
@@ -532,19 +532,6 @@ def test_device_unfold_flag_conflicts(tmp_path, capsys):
     with pytest.raises(SystemExit):  # .card input
         main(["detect", "x.card", "--device-unfold",
               "--template", str(tmp_path / "tpl.npy")])
-
-
-def test_use_pallas_validated():
-    """A typo'd use_pallas ('ON', 'true') must fail loudly, not
-    silently behave as 'auto' (a test meaning to force the kernel
-    path would otherwise pass vacuously on the XLA path)."""
-    from thrifty_tpu import sim
-    from thrifty_tpu.dsp.detector import BatchDetector, DetectorConfig
-
-    tpl = sim.make_template(bits=5)
-    with pytest.raises(ValueError, match="use_pallas"):
-        BatchDetector(tpl, DetectorConfig(
-            block_len=2048, history_len=200, use_pallas="ON"))
 
 
 def test_fractional_ground_truth_recovered():

@@ -191,9 +191,6 @@ def test_validation():
     tpl = sim.make_template()
     with pytest.raises(ValueError, match="gate_capacity"):
         BatchDetector(tpl, dataclasses.replace(BASE, gate_capacity=-1))
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        BatchDetector(tpl, dataclasses.replace(
-            BASE, gate_capacity=8, use_pallas="on"))
     # cap >= batch is simply ungated, not an error.
     det = BatchDetector(tpl, dataclasses.replace(BASE, gate_capacity=64))
     cap = sim.synth_capture(num_blocks=8, bursts_every=4,

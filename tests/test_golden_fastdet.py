@@ -3,7 +3,7 @@ implementation (fastcard + fastdet).
 
 ``tests/golden/fastdet/`` holds outputs of the actual reference C/C++
 binaries, built from /root/reference by scripts/make_fastdet_goldens.sh
-against minimal self-written FFT/volk shims (the TPU hosts have no
+against minimal self-written FFT/volk shims (the GPU hosts have no
 FFTW/volk/librtlsdr; the shim substitutes only the numeric backend --
 every detection decision, the overlap-save geometry, the integer-bin
 roll, the 0.5-clipped Gaussian/parabolic interpolation, thresholds, SoA

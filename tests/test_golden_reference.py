@@ -21,7 +21,7 @@ field-by-field.  This is the acceptance bar of SURVEY.md section 7.3
 tdoa_est.py:234-303, pos_est.py:128-157).
 
 Tolerances: the reference computes in float64 numpy on the host; the
-TPU-native detector computes the FFT/correlation path in float32 on
+batched detector computes the FFT/correlation path in float32 on
 device (float64 only for the final SoA arithmetic).  Measured
 disagreement on this capture is ~1e-5 samples of SoA and <1e-6
 relative on amplitudes; bounds below carry ~10-50x headroom over that

@@ -1,4 +1,4 @@
-"""MXU matmul FFT (dsp/mxu_fft.py) vs numpy, and in the detector."""
+"""DFT-as-matmul transforms (dsp/mxu_fft.py) vs numpy, and in the detector."""
 
 import numpy as np
 import pytest
@@ -173,14 +173,15 @@ class TestIfftHead:
 
 class TestPrecision:
     def test_high_precision_runs_and_is_coarser(self):
-        """'high' (bf16x3 on TPU; still f32 matmul on CPU) transforms
+        """'high' (TF32 on the GPU; still f32 matmul on CPU) transforms
         correctly; 'default' is accepted but documented-lossy."""
         x = rand(2, 16384, seed=8)
         ref = np.fft.fft(x.astype(np.complex128))
         for prec in ("high", "default"):
             got = np.asarray(mxu_fft.fft(x, "matmul", prec))
-            # CPU matmuls ignore the TPU pass-count hint -- just assert
-            # correctness envelope here; the TPU A/B lives in bench.
+            # CPU matmuls ignore the precision hint -- just assert the
+            # correctness envelope here; chip_smoke.py measures 'high'
+            # on the card.
             err = np.max(np.abs(got - ref)) / np.max(np.abs(ref))
             assert err < 1e-2, (prec, err)
 
@@ -477,7 +478,7 @@ class TestSeparableRamp:
 
 
 class TestCarrierPrecision:
-    """carrier_precision: MXU accumulation override for the carrier
+    """carrier_precision: matmul precision override for the carrier
     transform only (round 5)."""
 
     def _run(self, **over):
@@ -501,7 +502,8 @@ class TestCarrierPrecision:
         np.testing.assert_array_equal(a["detected"], b["detected"])
         np.testing.assert_array_equal(a["carrier_bin"], b["carrier_bin"])
         np.testing.assert_array_equal(a["corr_sample"], b["corr_sample"])
-        # Carrier magnitudes at bf16x3 grade; corr numerics unchanged
+        # Carrier magnitudes at reduced-precision grade (TF32 on the
+        # GPU); corr numerics unchanged
         # up to the carrier-offset feedthrough into the sync ramp.
         m = a["detected"]
         np.testing.assert_allclose(a["carrier_energy"][m],

@@ -173,7 +173,7 @@ def test_scaling_sweep_smoke(tmp_path):
     os.environ.get("THRIFTY_TPU_SKIP_MULTIHOST") == "1",
     reason="multi-host test disabled")
 def test_scaling_sweep_multiprocess(tmp_path):
-    """--processes 2 rehearses the pod command line in CI: two
+    """--processes 2 rehearses the multi-process command line: two
     coordinator-connected jax.distributed workers sweep the global
     (2, 4) mesh; process 0 writes the report."""
     import json
@@ -235,25 +235,25 @@ def test_validation_sweep_fastdet_smoke(tmp_path):
     assert data["worst_soa_diff"] < 1e-4
 
 
-def test_tpu_golden_check_script(tmp_path):
-    """The on-chip golden-check script also passes on the CPU backend
-    (the dev harness for what deployments run on a real chip)."""
+def test_golden_check_script(tmp_path):
+    """The golden-check script also passes on the CPU backend (the dev
+    harness for what chip_smoke.py runs on the card)."""
     import json
 
     env = dict(os.environ)
-    env["THRIFTY_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     res = subprocess.run(
-        [sys.executable, os.path.join(SCRIPTS, "tpu_golden_check.py")],
+        [sys.executable, os.path.join(SCRIPTS, "golden_check.py")],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     summary = json.loads(res.stdout.strip().splitlines()[-1])
-    assert summary["metric"] == "tpu_golden_check"
+    assert summary["metric"] == "golden_check"
     assert summary["value"] == 1.0
     assert summary["backend"] == "cpu"
 
 
-def test_tpu_golden_check_gated(tmp_path):
+def test_golden_check_gated(tmp_path):
     """--detect-arg passthrough: the carrier-gated detect path must
     reproduce the reference goldens through the full chain too (a
     golden capture dense in carriers exercises the cond fallback; a
@@ -261,9 +261,9 @@ def test_tpu_golden_check_gated(tmp_path):
     import json
 
     env = dict(os.environ)
-    env["THRIFTY_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     res = subprocess.run(
-        [sys.executable, os.path.join(SCRIPTS, "tpu_golden_check.py"),
+        [sys.executable, os.path.join(SCRIPTS, "golden_check.py"),
          "--detect-arg=--gate-capacity", "--detect-arg=8"],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=300)
@@ -272,14 +272,14 @@ def test_tpu_golden_check_gated(tmp_path):
     assert summary["value"] == 1.0
 
 
-def test_tpu_golden_check_tolerances_match_tests():
-    """The on-chip script's duplicated column maps / tolerances must
+def test_golden_check_tolerances_match_tests():
+    """The golden-check script's duplicated column maps / tolerances must
     not drift from the golden tests' (they can't share a module since
     neither tests/ nor scripts/ is an importable package)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "tpu_golden_check", os.path.join(SCRIPTS, "tpu_golden_check.py"))
+        "golden_check", os.path.join(SCRIPTS, "golden_check.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     import test_golden_fastdet as tgf
@@ -292,13 +292,13 @@ def test_tpu_golden_check_tolerances_match_tests():
         k: v for k, v in tgr.TOAD_TOLS.items() if k != 1}
 
 
-def test_tpu_ab_time_smoke(tmp_path):
+def test_ab_time_smoke(tmp_path):
     """Interleaved config A/B timer runs on CPU and emits the paired
-    JSON contract (on TPU it is the sound same-session protocol for
-    any DetectorConfig knob -- docs/performance.md)."""
+    JSON contract (on the card it is the same-process protocol for
+    any DetectorConfig knob)."""
     import json
 
-    res = run_script("tpu_ab_time.py",
+    res = run_script("ab_time.py",
                      ["--cpu", "--batch", "8", "--scan-k", "2",
                       "--rounds", "3", "--ab", "fft_impl=xla"],
                      str(tmp_path))
@@ -307,10 +307,10 @@ def test_tpu_ab_time_smoke(tmp_path):
     assert data["metric"] == "config_ab_time"
     assert data["b"] == {"fft_impl": "xla"} and data["a"] == {}
     if res.returncode != 0:
-        # Host-load jitter on this shared machine can produce
+        # Host-load jitter on a shared machine can produce
         # non-positive scan slopes at scan-k=2; the script must then
         # DISCARD those rounds and declare itself unresolved rather
-        # than report poisoned ratios (the round-5 guard).
+        # than report poisoned ratios.
         assert data["verdict"] == "unresolved", data
         return
     assert data["verdict"] in ("a_faster", "b_faster", "parity")
@@ -321,19 +321,19 @@ def test_tpu_ab_time_smoke(tmp_path):
     assert data["invalid_rounds"] + len(data["rounds"]) == 3
 
 
-def test_tpu_ab_time_rejects_bad_override(tmp_path):
-    res = run_script("tpu_ab_time.py",
+def test_ab_time_rejects_bad_override(tmp_path):
+    res = run_script("ab_time.py",
                      ["--cpu", "--ab", "nonsense"], str(tmp_path))
     assert res.returncode != 0
 
 
-def test_tpu_ab_time_sync_mode_override(tmp_path):
+def test_ab_time_sync_mode_override(tmp_path):
     """sync_mode is a valid str field: overriding it via --ab must
     build B with the overridden mode (dataclasses.replace), not crash
     with a duplicate-keyword TypeError against the --sync-mode flag."""
     import json
 
-    res = run_script("tpu_ab_time.py",
+    res = run_script("ab_time.py",
                      ["--cpu", "--batch", "8", "--scan-k", "2",
                       "--rounds", "2", "--sync-mode", "fractional",
                       "--ab", "sync_mode=integer"], str(tmp_path))
@@ -341,3 +341,38 @@ def test_tpu_ab_time_sync_mode_override(tmp_path):
     data = json.loads(
         [l for l in res.stdout.splitlines() if l.startswith("{")][-1])
     assert data["b"] == {"sync_mode": "integer"}
+
+
+def _load_scaling_sweep():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "scaling_sweep", os.path.join(SCRIPTS, "scaling_sweep.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_scaling_sweep_worker_env_cpu():
+    """Emulating devices: every worker stays on the CPU backend with
+    its own virtual devices, whatever the parent environment says."""
+    mod = _load_scaling_sweep()
+    base = {"XLA_FLAGS": "--xla_dump_to=/dev/null", "JAX_PLATFORMS": "cuda"}
+    envs = [mod.worker_env(base, pid, "cpu", 4) for pid in range(2)]
+    for env in envs:
+        assert env["JAX_PLATFORMS"] == "cpu"
+        assert env["XLA_FLAGS"].endswith(
+            "--xla_force_host_platform_device_count=4")
+        assert "CUDA_VISIBLE_DEVICES" not in env
+    assert base["JAX_PLATFORMS"] == "cuda"  # parent env untouched
+
+
+def test_scaling_sweep_worker_env_one_card_each():
+    """On the GPU every worker sees exactly one card, and no two
+    workers see the same card."""
+    mod = _load_scaling_sweep()
+    envs = [mod.worker_env({}, pid, None, 4) for pid in range(4)]
+    cards = [env["CUDA_VISIBLE_DEVICES"] for env in envs]
+    assert cards == ["0", "1", "2", "3"]
+    assert all("xla_force_host_platform_device_count"
+               not in env.get("XLA_FLAGS", "") for env in envs)

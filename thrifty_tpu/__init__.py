@@ -1,9 +1,10 @@
-"""thrifty-tpu: a TPU-native TDOA detection & positioning framework.
+"""thrifty-tpu: a batched JAX TDOA detection & positioning framework.
 
 A from-scratch re-design of the capabilities of swkrueger/Thrifty
-(proof-of-concept SDR TDOA positioning of wildlife trackers) for TPU
-hardware: all DSP runs as batched JAX/XLA/Pallas kernels, scaled over
-device meshes with jax.sharding, with a C++ host layer for stream I/O.
+(proof-of-concept SDR TDOA positioning of wildlife trackers) for
+accelerators: all DSP runs as batched JAX/XLA programs on the GPU,
+scaled over device meshes with jax.sharding, with a C++ host layer for
+stream I/O.
 
 Layer map (mirrors reference SURVEY.md section 1):
   ingest   -- .card / raw IQ readers, overlap-save blocking  (thrifty_tpu.io)

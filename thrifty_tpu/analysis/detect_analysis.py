@@ -310,7 +310,7 @@ class InteractiveViewer:
     browser (/root/reference/thrifty/detect_analysis.py:555-621): one
     matplotlib window, left/right steps through blocks, up/down (or
     j/k) through the plot views, 'q' closes.  Works over any
-    matplotlib backend (X11, Tk, or ssh -X on a headless TPU host).
+    matplotlib backend (X11, Tk, or ssh -X on a headless GPU host).
     """
 
     def __init__(self, diagnostics, plot_names, fig=None):

@@ -76,7 +76,7 @@ SETTINGS: dict[str, Setting] = {
     "rxid": Setting(
         ("--rxid", "-r"), int, -1,
         "Unique identifier of this receiver"),
-    # TPU-native additions (no reference equivalent):
+    # Additions (no reference equivalent):
     "batch_size": Setting(
         ("--batch-size",), int, "256",
         "Number of blocks processed per device batch"),

@@ -1,6 +1,6 @@
 """Batched carrier detection: windowed argmax threshold detector on |FFT|.
 
-TPU-native re-design of the reference's per-block carrier detector
+Batched re-design of the reference's per-block carrier detector
 (thrifty/carrier_detect.py:61-115, fastcard/cardet.c:7-41): instead of a
 scalar loop over blocks, every stage is computed for a whole batch of
 blocks [B, N] at once as array reductions, with the frequency window
@@ -77,7 +77,8 @@ def apply_peak_filter(fft_mag, weights):
         lambda shift: jax.lax.dynamic_slice_in_dim(
             padded, shift, power.shape[-1], axis=-1))(jnp.arange(
                 len(weights)))
-    filtered = jnp.sqrt(jnp.tensordot(coeffs, windows, axes=(0, 0)))
+    filtered = jnp.sqrt(jnp.tensordot(coeffs, windows, axes=(0, 0),
+                                      precision=jax.lax.Precision.HIGHEST))
     return filtered, delay
 
 
@@ -133,6 +134,9 @@ def detect(fft_mag, mask, thresh_coeffs, peak_filter=None,
     noise_rms : [...] float
     """
     n = fft_mag.shape[-1]
+    if not np.asarray(mask).any():
+        # The masked argmax would silently report bin 0.
+        raise ValueError("carrier window mask has no True bins")
     if peak_filter is not None:
         # Reference semantics (thrifty/carrier_detect.py:123-154): the
         # FIR runs over the CONTIGUOUS wrapped window selection with
@@ -224,7 +228,7 @@ def windowed_selection(carrier_window, thresh_coeffs, n, fft_impl,
 
 def detect_windowed(blocks, sel, ext, margin, thresh_coeffs,
                     fft_impl="auto", fft_precision="highest"):
-    """Carrier detection via a windowed DFT (the round-5 fast path).
+    """Carrier detection via a windowed DFT (the matmul fast path).
 
     The carrier stage consumes only (a) the windowed argmax plus an
     interpolation neighborhood and (b) the total spectrum energy --

@@ -245,7 +245,8 @@ def make_polyfit_interpolator(width: int):
             y = gather_neighborhood(mag, peak_idx, offs)
         else:
             y = values
-        coeffs = jnp.einsum("kp,...p->...k", jnp.asarray(pinv, y.dtype), y)
+        coeffs = jnp.einsum("kp,...p->...k", jnp.asarray(pinv, y.dtype), y,
+                            precision=lax.Precision.HIGHEST)
         a2, a1 = coeffs[..., 0], coeffs[..., 1]
         a2 = jnp.where(jnp.abs(a2) < 1e-30,
                        jnp.where(a2 < 0.0, -1e-30, 1e-30), a2)

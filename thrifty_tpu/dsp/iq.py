@@ -42,10 +42,9 @@ def raw_to_iq_jax(raw):
     """Device-side uint8 [..., 2N] -> complex64 [..., N].
 
     The interleaved I/Q pair is read as one uint16 (bitcast of the byte
-    pair) and split with element-wise shift/mask -- strided slicing
-    (``[..., 0::2]``) would force lane-hostile relayouts on TPU, while
-    this formulation is pure element-wise work that XLA fuses into the
-    consumer (typically the first FFT's input read).
+    pair) and split with element-wise shift/mask instead of strided
+    slicing (``[..., 0::2]``): pure element-wise work that XLA fuses
+    into the consumer (typically the first FFT's input read).
     """
     import jax
     import jax.numpy as jnp

@@ -1,8 +1,8 @@
-"""MXU-resident FFT: Bailey four-step / DFT-matrix transforms as matmuls.
+"""DFT-as-matmul transforms: Bailey four-step / dense DFT products.
 
-XLA lowers `jnp.fft` on TPU to butterfly passes on the vector units;
-the systolic array (MXU) -- where the chip's FLOPs live -- sits idle.
-Reformulating the FFT as matrix products moves it onto the MXU:
+The detector's transforms can run either as ``jnp.fft`` (XLA's FFT:
+cuFFT on the GPU, pocketfft/ducc on the CPU) or reformulated as matrix
+products:
 
 - n <= ``_DFT_MAX``: one dense DFT matrix product, out = x @ F with
   F[j, k] = W_n^{jk}.
@@ -12,44 +12,33 @@ Reformulating the FFT as matrix products moves it onto the MXU:
   result transposed -- two batched [128 x 128]-class matmuls + one
   elementwise twiddle instead of log2(n) butterfly passes.
 
-Measured on TPU v5e (round 4, scan-slope timing, [256, 16384] c64):
-jnp.fft 0.34-0.38 ms, four-step at Precision.HIGHEST 0.19-0.23 ms --
-**1.7x faster at f32-grade accuracy** (max relative error 3.5e-7 vs
-jnp.fft; Precision.DEFAULT would be 4x faster still but its bf16
-passes cost 5e-3 relative error -- too lossy for sub-sample SoA).
+The matmul form does O(n * (n1 + n2)) work where the FFT does
+O(n log n); it pays only where matrix units would otherwise idle under
+a memory-bound butterfly.  On the GPU the on-card A/B (PERF.md) decides
+``'auto'``: at Precision.HIGHEST the contractions run on the float32
+CUDA cores, not the tensor cores.
 
-``fft``/``ifft`` dispatch per ``impl``:
-  'auto'    -- matmul path on TPU backends, jnp.fft elsewhere (CPU
-               tests and goldens keep bit-exact jnp/numpy numerics);
+``fft``/``ifft`` dispatch per ``impl`` (:func:`resolve_impl`):
+  'auto'    -- ``jnp.fft`` on every backend (the GPU A/B's winner;
+               the CPU keeps bit-exact jnp/numpy numerics);
   'matmul'  -- force the matmul path (falls back to jnp.fft only when
                n has no supported factorization);
   'matmul3' -- matmul path with every complex product computed by
                Karatsuba's 3-real-multiplication identity instead of
                XLA's 4-product complex expansion (see _capply): 25%
-               fewer MXU passes, error within ~1.3x of 'matmul'
-               (6.1e-7 vs 4.8e-7 max relative on [3, 16384]).
-               Measured round 5 on v5e (interleaved same-session A/B,
-               scripts/tpu_ab_time.py): 3-13% SLOWER than 'matmul' in
-               every paired round at the default geometry -- the
-               three separate real einsums plus the xr+xi /
-               (t1-t2, t3-t1-t2) elementwise passes cost more than
-               the MXU passes they save (the program is not
-               MXU-bound; docs/performance.md "Where the time goes").
-               Kept as a documented negative result and an A/B knob;
-               'auto' resolves to the complex form;
+               fewer real products, error within ~1.3x of 'matmul'
+               (6.1e-7 vs 4.8e-7 max relative on [3, 16384], CPU);
   'xla'     -- force jnp.fft.
 
-``precision`` selects the matmul accumulation algorithm:
-  'highest' -- lax.Precision.HIGHEST (f32-grade, the 3.5e-7 figure
-               above); the default.
-  'high'    -- lax.Precision.HIGH (bf16x3 passes on TPU MXUs --
-               roughly half the MXU passes of 'highest'); measured
-               round 5 on v5e ~10-30% faster at clean sweep points
-               (docs/performance.md); numerics certified on chip via
-               `bench.py --program abcheck --ab fft_precision=high`.
+``precision`` selects the matmul contraction precision:
+  'highest' -- lax.Precision.HIGHEST: full float32 products; the
+               default.
+  'high'    -- lax.Precision.HIGH.  On the GPU, XLA lets both 'high'
+               and 'default' run float32 contractions in TF32 (inputs
+               rounded to a 10-bit mantissa, float32 accumulation);
+               the relative error measured on the card is in PERF.md.
                A throughput-over-parity knob, not the default.
-  'default' -- single-pass bf16 (fast, ~5e-3 relative error -- too
-               lossy for sub-sample SoA; exposed for experiments).
+  'default' -- lax.Precision.DEFAULT (TF32 on the GPU, like 'high').
 
 Beyond the full transforms, two trimmed variants exploit what the
 detector actually consumes (exact, not approximations -- they compute
@@ -121,8 +110,8 @@ def _four_step_consts(n1, n2, inverse):
 def _split(n):
     """(n1, n2) four-step factorization, or None.
 
-    n1 = 128 keeps the column transform a full-width MXU matmul; n2 is
-    whatever remains (itself a single [n2, n2] DFT product, so n2 is
+    n1 = 128 keeps the column transform a square [128 x 128] matmul;
+    n2 is whatever remains (itself a single [n2, n2] DFT product, so n2 is
     capped like the dense path).
     """
     if n % 128 == 0 and 128 <= n // 128 <= _DFT_MAX:
@@ -130,23 +119,35 @@ def _split(n):
     return None
 
 
-def _use_matmul(impl):
-    if impl not in ("auto", "matmul", "matmul3", "xla"):
+_IMPLS = ("auto", "matmul", "matmul3", "xla")
+
+
+def resolve_impl(impl):
+    """The concrete transform for ``impl`` on the default backend.
+
+    ``'auto'`` is ``'xla'`` (``jnp.fft``) everywhere: on the GPU,
+    cuFFT beat the four-step matmul in the on-card A/B of the whole
+    detect program (PERF.md), and on the CPU ``jnp.fft`` keeps the
+    goldens' numerics.
+    """
+    if impl not in _IMPLS:
         raise ValueError("unknown fft impl {!r}: expected 'auto', "
                          "'matmul', 'matmul3' or 'xla'".format(impl))
-    return (impl in ("matmul", "matmul3")
-            or (impl == "auto"
-                and jax.default_backend() not in ("cpu",)))
+    return "xla" if impl == "auto" else impl
+
+
+def _use_matmul(impl):
+    return resolve_impl(impl) != "xla"
 
 
 def _capply(x, cnp, op, kara):
     """Bilinear complex contraction ``op(x, const)`` two ways.
 
     ``kara=False``: one complex-operand call (XLA expands a complex
-    dot into 4 real MXU products).  ``kara=True`` (impl='matmul3'):
+    dot into 4 real products).  ``kara=True`` (impl='matmul3'):
     Karatsuba's 3-multiplication identity -- t1 = op(xr, cr),
     t2 = op(xi, ci), t3 = op(xr+xi, cr+ci), out = (t1-t2) +
-    i(t3-t1-t2) -- 25% fewer MXU passes at a small extra elementwise
+    i(t3-t1-t2) -- 25% fewer real products at a small extra elementwise
     cost and mildly worse rounding in the imaginary part (two
     cancelling subtractions).  ``op(a, c)`` must be bilinear and take
     (array, constant) in that order; ``cnp`` is a trace-time numpy
@@ -242,11 +243,12 @@ def fft_ramped(x, shift, impl="auto", precision="highest",
     broadcast product XLA fuses straight into the column transform's
     operand load, never materializing a ramp array.  Numerics: the
     two-factor product rounds differently from the single exp by ~1
-    ULP of phase; the matmul transform family is already certified
-    against the jnp.fft path at the f32 grade (tests/test_mxu_fft.py,
-    bench --program abcheck), and this variant is covered the same
-    way.  Falls back to the explicit full ramp off the four-step path
-    (dense/xla impls keep bit-exact reference numerics).
+    ULP of phase; the matmul transform family is checked against the
+    jnp.fft path at the f32 grade (tests/test_mxu_fft.py, and on the
+    card by chip_smoke.py's transforms phase), and this variant is
+    covered the same way.  Falls back to the explicit full ramp off the
+    four-step path (dense/xla impls keep bit-exact reference
+    numerics).
     """
     prec = _resolve_precision(precision)
     kara = impl == "matmul3"
@@ -289,11 +291,11 @@ def fft_ramped(x, shift, impl="auto", precision="highest",
 
 
 # Dense windowed-DFT heuristic: evaluate X[sel] as ONE [n, W] matmul
-# (no [B, n1, n2] column-transform intermediate materialized in HBM)
-# whenever the constant matrix stays below this element count.  At the
-# example geometry (n=16384, W~114) the dense constant is ~15 MB c64
-# -- template-bank scale -- and the saved b1 write+read passes are
-# worth more than the (comparable) MXU work.  Module-level so the A/B
+# (no [B, n1, n2] column-transform intermediate materialized in device
+# memory) whenever the constant matrix stays below this element count.
+# At the example geometry (n=16384, W~114) the dense constant is ~15 MB
+# c64 -- template-bank scale -- and it saves the b1 write+read passes
+# for comparable matmul work.  Module-level so the A/B
 # harness can pin either form; both are certified against the same
 # oracle tolerances.
 WINDOWED_DENSE_MAX_ELEMS = 8 * 1024 * 1024

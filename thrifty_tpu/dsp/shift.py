@@ -46,14 +46,13 @@ def integer_roll_fft(fft, shift, max_start=None):
     ``out[..., k] = fft[..., (k - shift) % N]`` -- same as np.roll along
     the last axis with a per-batch shift.
 
-    Implementation note (TPU): formulated as a per-row
-    ``lax.dynamic_slice`` of the row extended by its own wrapped head
-    -- one contiguous N-element block copy at a dynamic offset -- NOT
-    an elementwise ``take_along_axis`` gather.  The elementwise gather
-    compiles to scalar loads on TPU and measured ~70x slower than the
-    whole fractional-sync program (86 ms vs 1.3 ms per 256-block batch,
-    round-4 slope timing); the slice form is a permutation, so results
-    stay BITWISE identical to np.roll (the fastdet golden contract).
+    Implementation note: formulated as a per-row ``lax.dynamic_slice``
+    of the row extended by its own wrapped head -- one contiguous
+    N-element block copy at a dynamic offset -- NOT an elementwise
+    ``take_along_axis`` gather (chosen for a compiler that lowered the
+    gather to scalar loads; not yet re-measured on the GPU).  The slice
+    form is a permutation, so results stay BITWISE identical to
+    np.roll (the fastdet golden contract).
 
     ``max_start``: static upper bound (exclusive) on ``(-shift) % N``,
     when the caller can prove one -- carrier rolls are bounded by the

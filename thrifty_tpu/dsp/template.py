@@ -34,7 +34,7 @@ def generate_bank(bits: int, indices, sps: float) -> np.ndarray:
 
     All templates in a bank share the same length (same code family),
     enabling batched correlation against every transmitter at once
-    (the TPU-native analog of the reference's per-TX identification).
+    (the batched analog of the reference's per-TX identification).
     """
     templates = [generate(bits, i, sps) for i in indices]
     return np.stack(templates, axis=0)

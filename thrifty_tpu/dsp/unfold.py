@@ -1,6 +1,6 @@
 """Device-side overlap-save unfold of a contiguous sample stream.
 
-Shared by the single-chip detector (`BatchDetector.detect_raw_stream`)
+Shared by the single-device detector (`BatchDetector.detect_raw_stream`)
 and the capture carrier gate (`CarrierGate.gate_stream`): both ship
 the stream's NEW samples (packed uint16 I/Q byte pairs) plus a
 device-resident history carry, and rebuild the overlap-save rows on
@@ -59,8 +59,7 @@ def overlap_rows(full, block_len, history_len):
     trick shared by the device stream carry (:func:`unfold_stream`),
     the shard_map halo path, and the GSPMD twin
     (parallel/sharded.py); requires ``history_len <= new`` (true for
-    any usable unique-window geometry; a gather here is
-    catastrophically slow on TPU).
+    any usable unique-window geometry).
     """
     new = block_len - history_len
     lead = full.shape[:-1]
@@ -81,8 +80,7 @@ def unfold_stream(new_u16, carry_u16, block_len, history_len):
     standard overlap-save layout.  When history <= advance (true for
     any usable unique-window geometry) the unfold is pure reshapes
     (same trick as the sharded streaming program,
-    parallel/sharded.py -- a gather here is catastrophically slow on
-    TPU); other geometries fall back to a gather.
+    parallel/sharded.py); other geometries fall back to a gather.
     """
     new = block_len - history_len
     if new_u16.shape[0] == 0 or new_u16.shape[0] % new:

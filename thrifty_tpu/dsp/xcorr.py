@@ -81,8 +81,15 @@ def despread(shifted_fft, tmpl_fft_conj, corr_len: int):
 
 
 def window_peak(corr_mag, window):
-    """Batched argmax restricted to the unique-lag window [start, stop)."""
+    """Batched argmax restricted to the unique-lag window [start, stop).
+
+    Ties resolve to the earliest lag (argmax semantics).  An empty
+    window is refused: there is no peak to report.
+    """
     start, stop = window
+    if stop <= start:
+        raise ValueError("empty correlation window [{}, {})".format(
+            start, stop))
     peak_rel = jnp.argmax(corr_mag[..., start:stop], axis=-1)
     peak_idx = (peak_rel + start).astype(jnp.int32)
     peak_mag = jnp.take_along_axis(corr_mag, peak_idx[..., None], axis=-1)
@@ -292,7 +299,7 @@ def make_autocorr_interpolator(template, oversample: int = 16,
     The ideal peak shape is |R(tau)|, the template's (OOK-envelope)
     autocorrelation; it is precomputed on an ``oversample``-times finer
     grid and the fit solves for amplitude and sub-sample shift with a
-    fixed-iteration Gauss-Newton (batched).  TPU-native re-design of the
+    fixed-iteration Gauss-Newton (batched).  Batched re-design of the
     reference's iterative autocorr-fit
     (thrifty/experimental/xcorr_interpolators.py make_autocorr_fit).
 

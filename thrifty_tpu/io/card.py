@@ -6,7 +6,7 @@ where the raw block is the full block's 8-bit interleaved I/Q samples;
 ``#`` lines are comments.
 
 The default implementation parses whole files into batched arrays
-(timestamps [B], indices [B], raw [B, 2N]) -- feeding the TPU detector
+(timestamps [B], indices [B], raw [B, 2N]) -- feeding the batched detector
 batch-at-a-time rather than block-at-a-time.  A C++ fast path
 (thrifty_tpu.native) accelerates base64 decode when built.
 """

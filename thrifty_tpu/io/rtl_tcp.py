@@ -1,6 +1,6 @@
 """rtl_tcp network client: a live SDR source for StreamPump.
 
-TPU hosts have no USB SDR attached, so the live front-end speaks the
+GPU hosts have no USB SDR attached, so the live front-end speaks the
 standard rtl_tcp protocol (librtlsdr's network server, the lingua
 franca of SDR-over-TCP): the radio runs wherever the antenna is and
 the detector host pulls the raw uint8 I/Q stream over the network.

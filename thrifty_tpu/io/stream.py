@@ -1,6 +1,6 @@
 """Threaded streaming ingestion: reader thread -> ring buffer -> batches.
 
-The TPU-era replacement for the reference's capture producer/consumer
+The replacement for the reference's capture producer/consumer
 (fastcard/rtlsdr_reader.c:101-117 + circbuf.c): a reader thread pumps a
 raw IQ byte stream (SDR pipe, FIFO, file) into the native ring buffer
 while the main thread drains fixed-size block batches for the detector,
@@ -109,7 +109,7 @@ class StreamPump:
         self._reader_error = None
         # Regular files skip the ring entirely: mmap the file and
         # unfold overlap-save rows straight out of the page cache --
-        # ONE host copy total (docs/performance.md), vs two through
+        # ONE host copy total (docs/design.md), vs two through
         # the fused ring path.  Live sources (pipes, sockets, stdin)
         # keep the reader-thread + ring backpressure design.
         self._mm = self._try_mmap(stream)
@@ -205,7 +205,7 @@ class StreamPump:
         # Fused ring->blocks unfold (one full stream copy fewer) when
         # the geometry and capacity allow; read + strided copy
         # otherwise.  The ingest path is memcpy-bound, so every removed
-        # copy is ~a third of the ceiling (docs/performance.md).
+        # copy is ~a third of the ceiling (docs/design.md).
         fused = (self._hist_bytes <= self._new_bytes
                  and want <= getattr(self._ring, "capacity", 0)
                  and hasattr(self._ring, "read_unfold"))

@@ -1,8 +1,8 @@
 // Native host I/O engine for thrifty-tpu.
 //
-// TPU-native replacement for the reference's C capture front-end
+// Host-side replacement for the reference's C capture front-end
 // (fastcard/: base64.c, rawconv.c, raw_reader.c, card_reader.c,
-// circbuf.c): the DSP moved to the TPU, so the native layer's job is to
+// circbuf.c): the DSP moved to the device, so the native layer's job is to
 // keep the host->device input pipeline fed -- parse .card captures into
 // batched arrays at memory bandwidth (multi-threaded base64), convert
 // raw 8-bit IQ to float via a LUT, unfold overlap-save blocks, and pump

@@ -1,12 +1,12 @@
 """Float64 numpy implementation of the reference detector equations.
 
-This module is the *numerical ground truth* for the TPU detector: a
+This module is the *numerical ground truth* for the batched detector: a
 faithful, per-block float64 implementation of the reference's detection
 math (thrifty/carrier_detect.py, carrier_sync.py, soa_estimator.py,
 detect.py), using scipy's iterative curve_fit for the Dirichlet
 interpolation exactly like the reference does.  It serves two purposes:
 
-1. Test oracle: the batched TPU kernels must agree with it within the
+1. Test oracle: the batched device programs must agree with it within the
    float32/SNR noise bound (the reference's own oracle-test pattern,
    tests/test_soa_estimator.py:65-75).
 2. CPU baseline for bench.py: the reference code itself is Python 2 and

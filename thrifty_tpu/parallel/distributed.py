@@ -1,16 +1,14 @@
-"""Multi-host runtime initialisation and pod-level mesh construction.
+"""Multi-process runtime initialisation.
 
-A pod slice runs one process per host; `jax.distributed` stitches them
-into one logical device set, and the (rx, time) mesh spans every chip.
-Receivers map to hosts (their IQ streams arrive over DCN at the host
-that feeds them), so the frequent collective -- the 4920-sample history
-halo between time-neighbouring shards -- rides ICI within a host's
-chips, while the rx axis crosses hosts only for the final detection
-all-gather.
+Several processes (one per card, or one per host) can drive one
+(rx, time) mesh: `jax.distributed` stitches them into one logical
+device set.  The cards of one host are joined all to all, so the mesh
+follows the algorithm alone: the frequent collective -- the
+4920-sample history halo between time-neighbouring shards -- and the
+final detection all-gather cost the same on any pair of cards.
 
-This module cannot be exercised on single-host CI; its logic is the
-thin glue below, and the sharded programs it feeds are validated on
-virtual multi-device meshes (tests/test_sharded.py,
+The sharded programs this feeds are validated on virtual multi-device
+meshes (tests/test_sharded.py, tests/test_multihost.py,
 __graft_entry__.dryrun_multichip).
 """
 
@@ -18,15 +16,14 @@ from __future__ import annotations
 
 import jax
 
-from thrifty_tpu.parallel.mesh import make_mesh
-
 
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, **kwargs):
     """Initialise the multi-host runtime (idempotent wrapper).
 
-    With no arguments, relies on the cluster environment (TPU pod
-    metadata) exactly like ``jax.distributed.initialize()``.
+    Arguments as ``jax.distributed.initialize``; a single machine
+    gives no cluster environment, so pass ``coordinator_address``
+    (``localhost:<port>``), ``num_processes`` and ``process_id``.
     """
     try:
         jax.distributed.initialize(
@@ -42,19 +39,3 @@ def initialize(coordinator_address=None, num_processes=None,
         msg = str(e)
         if "already" not in msg and "only be called once" not in msg:
             raise  # genuinely failed
-
-
-def pod_mesh(num_rx=None):
-    """Build the (rx, time) mesh over every chip in the pod slice.
-
-    By default one rx shard per host (receivers feed hosts), with each
-    host's chips forming the time axis.
-    """
-    if num_rx is None:
-        num_rx = jax.process_count()
-    return make_mesh(num_rx=num_rx, devices=jax.devices())
-
-
-def is_coordinator() -> bool:
-    """True on the process that should write merged outputs."""
-    return jax.process_index() == 0

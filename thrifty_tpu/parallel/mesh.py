@@ -7,7 +7,7 @@ The workload's two natural parallel axes (SURVEY.md section 2.4):
 - ``time``: the sample stream is split into overlap-save blocks; blocks
   are independent given a history halo -- the time axis shards across
   devices with a halo exchange (the reference's block decomposition,
-  thrifty/block_data.py:70-98, mapped onto ICI collectives).
+  thrifty/block_data.py:70-98, mapped onto collectives).
 """
 
 from __future__ import annotations
@@ -25,9 +25,9 @@ def make_mesh(num_rx: int = 1, num_time: int = None, devices=None) -> Mesh:
     """Build an (rx, time) mesh over the available devices.
 
     ``num_time`` defaults to devices/num_rx.  The rx axis is the outer
-    axis: receivers map to separate hosts/ICI neighborhoods so the
-    time-halo exchange (the frequent collective) rides the fast inner
-    axis.
+    axis.  The cards of a host are joined all to all, so the layout
+    follows the algorithm: receivers are independent, and the
+    time-halo exchange runs between neighbours on the inner axis.
     """
     if devices is None:
         devices = jax.devices()

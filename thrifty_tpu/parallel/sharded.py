@@ -7,10 +7,10 @@ process/machine-level distribution (SURVEY.md section 2.4):
    halo (e.g. read from a .card file), so the batch axis is
    embarrassingly parallel: shard [B, N] over every mesh device.
 
-2. :func:`make_stream_detector` -- the TPU-native replacement for the
+2. :func:`make_stream_detector` -- the sharded replacement for the
    reference's overlap-save readers: each device holds a *contiguous
    chunk of new samples*; the 4920-sample history halo is exchanged
-   between time-neighbor devices with a single ``lax.ppermute`` over ICI
+   between time-neighbor devices with a single ``lax.ppermute``
    (the collective analog of fastcard's memcpy of the previous block's
    tail, fastcard/raw_reader.c:22-30), then each device unfolds its
    chunk into overlapped blocks locally and runs the batched detector.
@@ -105,7 +105,7 @@ def make_stream_detector(detector, num_rx, blocks_per_shard, mesh,
             (rx_local, blocks_per_shard)).astype(jnp.int32)
         if gather:
             # Ship every shard's detection table to every device (the
-            # detect -> matchmaking edge; rides ICI instead of scp).
+            # detect -> matchmaking edge; one collective instead of scp).
             out = jax.tree.map(
                 lambda a: _gather_2d(a), out)
         return out
@@ -174,9 +174,9 @@ def shard_stream(streams, mesh):
 
     Works in multi-controller (jax.distributed) runs too: every
     process passes the SAME global array and contributes only the
-    shards its own devices address (the pod dataflow -- each host
-    feeds the receivers it serves; here the full array stands in for
-    deterministic test/bench streams).
+    shards its own devices address (each process feeds the receivers
+    it serves; here the full array stands in for deterministic
+    test/bench streams).
     """
     import numpy as np
 

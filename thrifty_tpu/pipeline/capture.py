@@ -6,7 +6,7 @@ stream and archive *only the blocks that pass* as base64 ``.card``
 lines (reference fastcard/fastcard_cli.c:156-196), turning a continuous
 2.4 MB/s stream into a sparse, re-analyzable capture.
 
-TPU-native redesign: instead of a per-block FFTW loop, blocks are
+Batched redesign: instead of a per-block FFTW loop, blocks are
 batched [B, N] and gated by one jit-compiled XLA program (uint8->complex
 conversion fused into the FFT input read, batched FFT, windowed argmax +
 noise + threshold).  Only the pass/fail verdicts and peak stats cross
@@ -55,14 +55,14 @@ class CarrierGate:
         self._thresh = tuple(carrier_thresh)
         self._fft_impl = fft_impl
         self._fft_precision = fft_precision
-        # Windowed-DFT fast path (round 5): eligibility and numerics
-        # shared with the detector's carrier stage through
+        # Windowed-DFT fast path: eligibility and numerics shared with
+        # the detector's carrier stage through
         # dsp.carrier.windowed_selection/detect_windowed -- the gate
         # consumes only the windowed argmax and the Parseval energy,
         # so the full FFT + [B, N] magnitude array collapse to half a
-        # four-step transform.  Off on the jnp.fft path (CPU keeps
-        # bit-exact numerics for the golden archives) and under a
-        # stddev threshold term (needs every bin's magnitude).
+        # four-step transform.  Off on the jnp.fft path (bit-exact
+        # numerics for the golden archives) and under a stddev
+        # threshold term (needs every bin's magnitude).
         self._win = carrier.windowed_selection(
             carrier_window, self._thresh, block_len, fft_impl)
         self._jit = jax.jit(self._program)
@@ -460,9 +460,9 @@ def _main(argv=None):
     parser.add_argument("--fft-impl", type=str, default="auto",
                         choices=["auto", "matmul", "matmul3", "xla"],
                         help="FFT implementation for the carrier gate "
-                             "(dsp/mxu_fft.py; 'auto' = MXU matmul on "
-                             "TPU with the windowed-DFT gate, jnp.fft "
-                             "elsewhere) [default: auto]")
+                             "(dsp/mxu_fft.py; 'auto' = jnp.fft; "
+                             "'matmul' adds the windowed-DFT gate) "
+                             "[default: auto]")
     parser.add_argument("--capture-cmd", type=str, default="fastcard",
                         help="capture binary to spawn [default: fastcard]")
     keys = ["sample_rate", "tuner_freq", "tuner_gain", "block_size",

@@ -3,8 +3,8 @@
 The host-side pump around the batched device detector: read fixed-size
 batches of blocks, upload, detect, and serialize detections.  JAX's
 async dispatch overlaps host IO/decode of batch k+1 with device compute
-of batch k (the TPU-era replacement for fastcard's producer/consumer
-ring buffer, fastcard/circbuf.c); batches are padded to a static shape
+of batch k (the replacement for fastcard's producer/consumer ring
+buffer, fastcard/circbuf.c); batches are padded to a static shape
 so the program compiles exactly once.
 
 CLI mirrors the reference's ``thrifty detect`` (thrifty/detect.py:
@@ -212,22 +212,16 @@ def _main(argv=None):
                         help="sub-bin carrier interpolator [default: "
                              "auto = dirichlet, or parabolic in integer "
                              "sync mode]")
-    parser.add_argument("--pallas", type=str, default="auto",
-                        choices=["auto", "on", "off"],
-                        help="fused Pallas peak/energy kernel "
-                             "[default: auto = off; XLA's fusion "
-                             "measures faster -- docs/performance.md]")
     parser.add_argument("--fft-impl", type=str, default="auto",
                         choices=["auto", "matmul", "matmul3", "xla"],
-                        help="FFT implementation [default: auto = MXU "
-                             "matmul transforms on TPU (1.7x the "
-                             "butterfly lowering), jnp.fft elsewhere]")
+                        help="FFT implementation [default: auto = "
+                             "jnp.fft (cuFFT on the GPU); matmul = "
+                             "four-step DFT-as-matmul transforms]")
     parser.add_argument("--fft-precision", type=str, default="highest",
                         choices=["highest", "high", "default"],
-                        help="matmul-FFT accumulation precision: "
-                             "'high' trades ~3e-4 relative energy "
-                             "error for ~MXU-pass-halved transforms "
-                             "[default: highest]")
+                        help="matmul-FFT contraction precision: 'high' "
+                             "and 'default' allow TF32 on the GPU "
+                             "[default: highest = full float32]")
     parser.add_argument("--carrier-fast", type=str, default="auto",
                         choices=["auto", "off"],
                         help="windowed-carrier fast path: 'off' "
@@ -235,12 +229,10 @@ def _main(argv=None):
                              "[default: auto = on when eligible]")
     parser.add_argument("--carrier-precision", type=str, default="auto",
                         choices=["auto", "highest", "high", "default"],
-                        help="MXU accumulation for the CARRIER "
-                             "transform only (fractional sync; "
-                             "'high' = bf16x3 passes -- the safest "
-                             "place for the throughput-over-parity "
-                             "trade) [default: auto = follow "
-                             "--fft-precision]")
+                        help="matmul precision for the CARRIER "
+                             "transform only (fractional sync; 'high' "
+                             "allows TF32 on the GPU) [default: auto = "
+                             "follow --fft-precision]")
     parser.add_argument("--ramp-fast", type=str, default="auto",
                         choices=["auto", "off"],
                         help="separable fractional-sync ramp fused "
@@ -314,7 +306,6 @@ def _main(argv=None):
         corr_interp=args.corr_interp,
         carrier_interp=args.carrier_interp,
         peak_filter_len=args.peak_filter,
-        use_pallas=args.pallas,
         fft_impl=args.fft_impl,
         fft_precision=args.fft_precision,
         carrier_fast=args.carrier_fast,

@@ -22,7 +22,7 @@ def _main(argv=None):
                         default=None, metavar="FILE",
                         help="save an autocorrelation plot (reference "
                              "gold.py:85-96; written to FILE instead of "
-                             "shown -- TPU hosts are headless)")
+                             "shown -- GPU hosts are headless)")
     args = parser.parse_args(argv)
 
     seq = gold.gold(args.length, args.index)

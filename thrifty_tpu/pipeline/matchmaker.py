@@ -164,7 +164,7 @@ def match_detections_arrays(detections, window=0.2):
     Python work, so fleets can feed millions of detections per second
     without the list-of-lists materialization cost (which is what
     actually bounds :func:`match_detections` -- see
-    docs/performance.md).
+    docs/design.md).
     """
     ts = np.asarray(detections["timestamp"], dtype=np.float64)
     tx = np.asarray(detections["txid"])

@@ -319,11 +319,13 @@ def _make_batched_solver(dims, iters, damping):
             cost = jnp.sum(resid * resid, axis=-1)
             jacmat = (p0 / d0[..., None] - p1 / d1[..., None]) \
                 * wgt[:, None, :, None]
-            jtj = jnp.einsum("gkpi,gkpj->gkij", jacmat, jacmat)
+            jtj = jnp.einsum("gkpi,gkpj->gkij", jacmat, jacmat,
+                             precision=jax.lax.Precision.HIGHEST)
             diag = jnp.diagonal(jtj, axis1=-2, axis2=-1)
             jtj = jtj + lam[..., None, None] * (diag + 1e-9)[..., None] \
                 * jnp.eye(dims)
-            jtr = jnp.einsum("gkpi,gkp->gki", jacmat, resid)
+            jtr = jnp.einsum("gkpi,gkp->gki", jacmat, resid,
+                             precision=jax.lax.Precision.HIGHEST)
             # jacmat is d(residual)/d(pos), so the Gauss-Newton step is
             # pos - (J^T J)^-1 J^T r.
             delta = jnp.linalg.solve(jtj, jtr[..., None])[..., 0]

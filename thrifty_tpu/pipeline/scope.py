@@ -5,7 +5,7 @@ graph reading directly from an osmosdr source: a time sink with an
 amplitude level trigger, a complex freq (FFT) sink with a dB level
 trigger, and a magnitude histogram.  This re-design keeps the
 instrument but swaps the front-end: instead of binding to SDR hardware
-(absent on TPU hosts), it consumes the same raw interleaved uint8 I/Q
+(absent on GPU hosts), it consumes the same raw interleaved uint8 I/Q
 stream every other stage uses -- a file, a FIFO fed by ``rtl_sdr``, or
 stdin -- so the scope works on live pipes and on recorded captures
 alike.

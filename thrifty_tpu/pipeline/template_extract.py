@@ -57,7 +57,7 @@ def _main(argv=None):
                         metavar="FILE",
                         help="save an extracted-vs-base template overlay "
                              "(reference template_extract.py:61-72; "
-                             "written to FILE -- TPU hosts are headless)")
+                             "written to FILE -- GPU hosts are headless)")
     keys = ["sample_rate", "block_size", "block_history", "carrier_window",
             "carrier_threshold", "corr_threshold", "template"]
     config, args = settings_mod.load_args(parser, keys, argv=argv)
